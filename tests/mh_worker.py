@@ -21,18 +21,18 @@ def main() -> None:
     out_path = sys.argv[2]
     port = sys.argv[3] if len(sys.argv) > 3 else "12377"
 
-    from raytracing_gpu_tpu.parallel import distributed
+    from raytracing_gpu.parallel import distributed
 
     distributed.initialize(coordinator_address=f"localhost:{port}",
                            num_processes=2, process_id=pid)
     assert jax.process_count() == 2, jax.process_count()
     assert jax.device_count() == 4, jax.device_count()
 
-    from raytracing_gpu_tpu.core.config import RenderSettings
-    from raytracing_gpu_tpu.engine.render import render_linear
-    from raytracing_gpu_tpu.models import scenes
-    from raytracing_gpu_tpu.parallel.mesh import make_mesh
-    from raytracing_gpu_tpu.parallel.render import make_sharded_chunk_fn
+    from raytracing_gpu.core.config import RenderSettings
+    from raytracing_gpu.engine.render import render_linear
+    from raytracing_gpu.models import scenes
+    from raytracing_gpu.parallel.mesh import make_mesh
+    from raytracing_gpu.parallel.render import make_sharded_chunk_fn
 
     sd = scenes.get("basic")
     settings = RenderSettings(image_width=64, aspect_ratio=1.0,

@@ -11,9 +11,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from raytracing_gpu_tpu.accel import bvh as bvh_mod
-from raytracing_gpu_tpu.engine.intersect import BIG, closest_hit
-from raytracing_gpu_tpu.scene.builder import SceneBuilder
+from raytracing_gpu.accel import bvh as bvh_mod
+from raytracing_gpu.engine.intersect import BIG, closest_hit
+from raytracing_gpu.scene.builder import SceneBuilder
 
 KEY = jax.random.PRNGKey(0)
 
@@ -123,8 +123,8 @@ class TestSphereOracle:
 
 class TestMeshSceneRenders:
     def test_door_scene_bvh_render(self):
-        from raytracing_gpu_tpu import RenderSettings, render_linear
-        from raytracing_gpu_tpu.models import scenes
+        from raytracing_gpu import RenderSettings, render_linear
+        from raytracing_gpu.models import scenes
 
         sd = scenes.get("door")
         assert sd.scene.tri_bvh is not None
@@ -146,7 +146,7 @@ class Test100kTriScale:
     """
 
     def test_100k_bvh_matches_dense(self, np_rng):
-        from raytracing_gpu_tpu.models.scenes import _uv_sphere
+        from raytracing_gpu.models.scenes import _uv_sphere
 
         v, f, uvs, n = _uv_sphere(224, 224)
         assert len(f) == 100352
@@ -175,8 +175,8 @@ class Test100kTriScale:
                                    np.asarray(r2.normal)[hit], atol=1e-5)
 
     def test_backpack_scene_renders(self):
-        from raytracing_gpu_tpu import RenderSettings, render_linear
-        from raytracing_gpu_tpu.models import scenes
+        from raytracing_gpu import RenderSettings, render_linear
+        from raytracing_gpu.models import scenes
 
         sd = scenes.get("backpack")
         assert np.asarray(sd.scene.triangles.v0).shape[0] == 100352

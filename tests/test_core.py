@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from raytracing_gpu_tpu.core import rng, vec
-from raytracing_gpu_tpu.core.camera import Camera
+from raytracing_gpu.core import rng, vec
+from raytracing_gpu.core.camera import Camera
 
 
 class TestVec:

@@ -1,10 +1,10 @@
 """Fused (hand-VJP) differentiable chunk vs the two-phase AD path.
 
 The fused renderer (engine/fused_diff.py) must be a drop-in replacement for
-compile_param_renderer with engine="pallas": bit-identical primal (same key
-schedule, same walk kernel, same shade math) and allclose gradients, across
-all three record-plane layouts (solid-only, need_p for checker/perlin,
-need_uv+need_p for image atlas scenes).
+compile_param_renderer: bit-identical primal (same key schedule, same XLA
+walk `trace_bounces`, same shade math) and allclose gradients, on the three
+shading paths (solid-only, checker via the hit point, image atlas via uv),
+with the recorded bounces kept as the residual or walked again.
 """
 
 import jax
@@ -12,11 +12,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from raytracing_gpu_tpu.core.config import RenderSettings
-from raytracing_gpu_tpu.engine import diff
-from raytracing_gpu_tpu.engine.fused_diff import compile_fused_param_renderer
-from raytracing_gpu_tpu.engine.render import compile_param_renderer
-from raytracing_gpu_tpu.models import scenes
+from raytracing_gpu.core.config import RenderSettings
+from raytracing_gpu.engine import diff
+from raytracing_gpu.engine.fused_diff import compile_fused_param_renderer
+from raytracing_gpu.engine.render import compile_param_renderer
+from raytracing_gpu.models import scenes
 
 
 def _settings():
@@ -34,7 +34,7 @@ def test_fused_matches_two_phase(name, save_planes):
     key = jax.random.PRNGKey(11)
     params = diff.get_params(sd.scene)
 
-    ref = compile_param_renderer(sd.scene, sd.camera, st, engine="pallas")
+    ref = compile_param_renderer(sd.scene, sd.camera, st)
     fus = compile_fused_param_renderer(sd.scene, sd.camera, st,
                                        save_planes=save_planes)
 

@@ -13,8 +13,8 @@ import os
 import numpy as np
 import pytest
 
-from raytracing_gpu_tpu import RenderSettings, render
-from raytracing_gpu_tpu.models import scenes
+from raytracing_gpu import RenderSettings, render
+from raytracing_gpu.models import scenes
 
 REF_IMG = "/root/reference/images"
 

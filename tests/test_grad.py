@@ -7,11 +7,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from raytracing_gpu_tpu import RenderSettings
-from raytracing_gpu_tpu.core.camera import Camera
-from raytracing_gpu_tpu.engine import diff
-from raytracing_gpu_tpu.engine.render import compile_param_renderer
-from raytracing_gpu_tpu.scene.builder import BLACK, SceneBuilder
+from raytracing_gpu import RenderSettings
+from raytracing_gpu.core.camera import Camera
+from raytracing_gpu.engine import diff
+from raytracing_gpu.engine.render import compile_param_renderer
+from raytracing_gpu.scene.builder import BLACK, SceneBuilder
 
 
 def _mini_cornell():

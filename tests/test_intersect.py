@@ -9,8 +9,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from raytracing_gpu_tpu.engine.intersect import closest_hit
-from raytracing_gpu_tpu.scene.builder import SceneBuilder
+from raytracing_gpu.engine.intersect import closest_hit
+from raytracing_gpu.scene.builder import SceneBuilder
 
 KEY = jax.random.PRNGKey(0)
 

@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from raytracing_gpu_tpu.core import vec
-from raytracing_gpu_tpu.scene import materials
-from raytracing_gpu_tpu.scene.builder import SceneBuilder
+from raytracing_gpu.core import vec
+from raytracing_gpu.scene import materials
+from raytracing_gpu.scene.builder import SceneBuilder
 
 KEY = jax.random.PRNGKey(0)
 

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from raytracing_gpu_tpu import native
-from raytracing_gpu_tpu.accel import bvh as bvh_mod
+from raytracing_gpu import native
+from raytracing_gpu.accel import bvh as bvh_mod
 
 
 @pytest.fixture(scope="module")
@@ -49,8 +49,8 @@ class TestNativeBVH:
         import jax
         import jax.numpy as jnp
 
-        from raytracing_gpu_tpu.engine.intersect import closest_hit
-        from raytracing_gpu_tpu.scene.builder import SceneBuilder
+        from raytracing_gpu.engine.intersect import closest_hit
+        from raytracing_gpu.scene.builder import SceneBuilder
 
         b = SceneBuilder()
         mat = b.lambertian((0.5, 0.5, 0.5))

@@ -1,19 +1,26 @@
 """Sharded rendering tests on the 8-virtual-device CPU mesh."""
 
+from functools import partial
+
 import jax
 import numpy as np
 import pytest
 
-from raytracing_gpu_tpu import RenderSettings
-from raytracing_gpu_tpu.core import rng
-from raytracing_gpu_tpu.engine.render import render_chunk
-from raytracing_gpu_tpu.models import scenes
-from raytracing_gpu_tpu.parallel.mesh import make_mesh
-from raytracing_gpu_tpu.parallel.render import render_chunk_sharded
+from raytracing_gpu import RenderSettings
+from raytracing_gpu.backend import Traversal, xla_traversal
+from raytracing_gpu.engine.render import render_chunk
+from raytracing_gpu.models import scenes
+from raytracing_gpu.ops import bvh_kernel
+from raytracing_gpu.parallel.mesh import make_mesh
+from raytracing_gpu.parallel.render import render_chunk_sharded
 
-pytestmark = pytest.mark.skipif(
-    len(jax.devices()) < 8, reason="needs 8 virtual devices"
-)
+# every test here meshes over the 8 virtual CPU devices
+pytestmark = pytest.mark.usefixtures("eight_devices")
+
+# the traversal kernel, run by the Pallas interpreter
+INTERPRET = Traversal("kernel", partial(bvh_kernel.closest_triangles,
+                                        interpret=True),
+                      partial(bvh_kernel.closest_spheres, interpret=True))
 
 
 @pytest.fixture(scope="module")
@@ -69,7 +76,7 @@ class TestShardedParity:
 
 class TestGradients:
     def test_sharded_param_grads_finite_and_match(self, basic):
-        from raytracing_gpu_tpu.engine import diff
+        from raytracing_gpu.engine import diff
 
         st = _settings(basic.aspect, spp=2)
         key = jax.random.PRNGKey(3)
@@ -128,7 +135,7 @@ class TestMultiHost:
         assert os.path.exists(out_npz), "coordinator wrote no output"
         got = np.load(out_npz)["linear"]
 
-        from raytracing_gpu_tpu.engine.render import render_linear
+        from raytracing_gpu.engine.render import render_linear
 
         sd = scenes.get("basic")
         st = RenderSettings(image_width=64, aspect_ratio=1.0, spp_per_chunk=4,
@@ -137,55 +144,72 @@ class TestMultiHost:
         np.testing.assert_allclose(got, want, rtol=2e-5, atol=1e-5)
 
 
-class TestShardedPallas:
-    def test_sharded_pallas_engine_matches_xla_statistically(self, basic):
-        """compile_sharded_renderer(engine='pallas') runs the megakernel
-        inside the shard_map region (interpret mode on CPU devices)."""
-        from raytracing_gpu_tpu.parallel.render import compile_sharded_renderer
+class TestShardedRenderer:
+    """compile_sharded_renderer: the scene-baked SPMD program must equal the
+    single-device chunk, with either BVH traversal inside the region."""
+
+    @pytest.mark.parametrize("n_sp,n_dp", [(1, 8), (2, 4), (4, 2)])
+    def test_matches_render_chunk(self, basic, n_sp, n_dp):
+        from raytracing_gpu.parallel.render import compile_sharded_renderer
 
         st = _settings(basic.aspect, spp=4)
         key = jax.random.PRNGKey(7)
+        npix = st.num_pixels
+        single = np.asarray(render_chunk(basic.scene, basic.camera, st, key))
+        c = compile_sharded_renderer(basic.scene, basic.camera, st,
+                                     make_mesh(n_sp=n_sp, n_dp=n_dp))
+        assert c.traversal == "xla"
+        np.testing.assert_allclose(np.asarray(c(key))[:npix], single[:npix],
+                                   rtol=2e-5, atol=1e-5)
+
+    def test_kernel_inside_shard_map_matches_xla(self, assert_renders_match):
+        """The traversal kernel (interpreted) inside the shard_map region on
+        a sphere-BVH scene gives the XLA traversal's image."""
+        from raytracing_gpu.parallel.render import compile_sharded_renderer
+
+        sd = scenes.get("big_scene1")
+        st = RenderSettings(image_width=32, aspect_ratio=sd.aspect,
+                            spp_per_chunk=2, num_chunks=1, max_depth=3,
+                            ray_batch=64)
+        key = jax.random.PRNGKey(8)
         mesh = make_mesh(n_sp=2, n_dp=4)
-        npix = st.image_height * st.image_width
-        xla = np.asarray(compile_sharded_renderer(
-            basic.scene, basic.camera, st, mesh, engine="xla")(key))[:npix]
-        pal = np.asarray(compile_sharded_renderer(
-            basic.scene, basic.camera, st, mesh, engine="pallas")(key))[:npix]
-        a, b = xla / st.spp_per_chunk, pal / st.spp_per_chunk
-        assert abs(a.mean() - b.mean()) < 0.02
-        assert np.corrcoef(a.reshape(-1), b.reshape(-1))[0, 1] > 0.95
+        npix = st.num_pixels
+        a = np.asarray(compile_sharded_renderer(
+            sd.scene, sd.camera, st, mesh, traverse=xla_traversal())(key))
+        k = compile_sharded_renderer(sd.scene, sd.camera, st, mesh,
+                                     traverse=INTERPRET)
+        assert k.traversal == "kernel"
+        assert_renders_match(a[:npix], np.asarray(k(key))[:npix])
 
 
 class TestShardedFused:
     """Sharded fused hand-VJP renderer (engine/fused_diff.py mesh= path):
-    the record-holding differentiable path must scale — primal AND gradients
-    must equal the single-device fused renderer up to float summation order
-    (VERDICT r3 #3)."""
+    primal AND gradients must equal the single-device fused renderer up to
+    float summation order."""
 
-    @pytest.mark.parametrize("n_sp,n_dp", [(2, 4), (1, 8)])
+    @pytest.mark.parametrize("n_sp,n_dp", [(2, 4), (1, 8), (8, 1), (4, 2)])
     def test_fused_sharded_matches_single(self, n_sp, n_dp):
         import jax.numpy as jnp
 
-        from raytracing_gpu_tpu.engine import diff
-        from raytracing_gpu_tpu.engine.fused_diff import \
+        from raytracing_gpu.engine import diff
+        from raytracing_gpu.engine.fused_diff import \
             compile_fused_param_renderer
 
         sd = scenes.get("cornell_box")
-        st = RenderSettings(image_width=24, aspect_ratio=1.0, spp_per_chunk=2,
+        st = RenderSettings(image_width=24, aspect_ratio=1.0, spp_per_chunk=8,
                             num_chunks=1, max_depth=3, ray_batch=576)
         key = jax.random.PRNGKey(11)
         params = diff.get_params(sd.scene)
         npix = st.num_pixels
 
-        single = compile_fused_param_renderer(sd.scene, sd.camera, st,
-                                              gen_rays=False)
+        single = compile_fused_param_renderer(sd.scene, sd.camera, st)
         mesh = make_mesh(n_sp=n_sp, n_dp=n_dp)
         shard = compile_fused_param_renderer(sd.scene, sd.camera, st,
-                                             mesh=mesh, gen_rays=False)
+                                             mesh=mesh)
 
         a = np.asarray(single(params, key))[:npix]
         b = np.asarray(shard(params, key))[:npix]
-        np.testing.assert_allclose(b, a, rtol=1e-6, atol=1e-7)
+        np.testing.assert_allclose(b, a, rtol=1e-6, atol=1e-6)
 
         target = jnp.zeros((npix, 3))
         g1 = jax.grad(
@@ -198,56 +222,29 @@ class TestShardedFused:
             np.testing.assert_allclose(gb, ga, rtol=0, atol=2e-5 * scale,
                                        err_msg=k)
 
+    def test_fused_sharded_walks_again_without_residual(self):
+        """save_planes=False (walk again in the backward pass) gives the
+        same sharded gradient as keeping the recorded bounces."""
+        import jax.numpy as jnp
 
-class TestShardedWavefront:
-    """VERDICT r4 #3: the sorted wavefront inside shard_map — parity vs the
-    single-device wavefront driver (keys fold by GLOBAL wave index, so the
-    dp split changes nothing but the padding rows)."""
+        from raytracing_gpu.engine import diff
+        from raytracing_gpu.engine.fused_diff import \
+            compile_fused_param_renderer
 
-    def test_sharded_wavefront_matches_single(self):
-        from raytracing_gpu_tpu.engine.wavefront import \
-            compile_wavefront_renderer
-        from raytracing_gpu_tpu.parallel.render import \
-            compile_sharded_renderer
-
-        sd = scenes.get("door")
-        st = RenderSettings(image_width=64, aspect_ratio=sd.aspect,
-                            spp_per_chunk=4, num_chunks=1, max_depth=4,
-                            ray_batch=512, rr_start=2)
-        key = jax.random.PRNGKey(9)
+        sd = scenes.get("two_spheres")
+        st = RenderSettings(image_width=24, aspect_ratio=1.0, spp_per_chunk=2,
+                            num_chunks=1, max_depth=3, ray_batch=576)
+        key = jax.random.PRNGKey(13)
+        params = diff.get_params(sd.scene)
         npix = st.num_pixels
-        single = np.asarray(compile_wavefront_renderer(
-            sd.scene, sd.camera, st)(key))[:npix]
-        mesh = make_mesh(n_sp=1, n_dp=8)
-        sharded_c = compile_sharded_renderer(sd.scene, sd.camera, st, mesh,
-                                             engine="pallas")
-        assert sharded_c.engine_name == "wavefront"
-        sharded = np.asarray(sharded_c(key))[:npix]
-        np.testing.assert_allclose(sharded, single, rtol=1e-5, atol=1e-5)
-
-    def test_sharded_regen_matches_single_statistically(self):
-        """Round-5 composition: the regenerative wavefront runs PER DEVICE
-        inside shard_map (own pixel span, own persistent wave, psum over
-        sp).  Sample streams differ per device, so parity vs the
-        single-device regen driver is statistical."""
-        from raytracing_gpu_tpu.engine.wavefront import compile_regen_renderer
-        from raytracing_gpu_tpu.parallel.render import \
-            compile_sharded_renderer
-
-        sd = scenes.get("door")
-        st = RenderSettings(image_width=48, aspect_ratio=sd.aspect,
-                            spp_per_chunk=32, num_chunks=1, max_depth=4,
-                            ray_batch=1024, rr_start=2)
-        key = jax.random.PRNGKey(12)
-        npix = st.num_pixels
-        single = np.asarray(compile_regen_renderer(
-            sd.scene, sd.camera, st)(key))[:npix] / 32
-        for n_sp, n_dp in ((1, 8), (2, 4)):
-            mesh = make_mesh(n_sp=n_sp, n_dp=n_dp)
-            c = compile_sharded_renderer(sd.scene, sd.camera, st, mesh,
-                                         engine="pallas")
-            assert c.engine_name == "regen", (n_sp, n_dp, c.engine_name)
-            sh = np.asarray(c(key))[:npix] / 32
-            assert abs(sh.mean() - single.mean()) < 0.03 * single.mean() + 5e-3
-            corr = np.corrcoef(sh.reshape(-1), single.reshape(-1))[0, 1]
-            assert corr > 0.9, (n_sp, n_dp, corr)
+        mesh = make_mesh(n_sp=2, n_dp=4)
+        grads = []
+        for save in (True, False):
+            f = compile_fused_param_renderer(sd.scene, sd.camera, st,
+                                             mesh=mesh, save_planes=save)
+            grads.append(jax.grad(
+                lambda p: jnp.mean(f(p, key)[:npix] ** 2))(params))
+        for k in grads[0]:
+            np.testing.assert_allclose(np.asarray(grads[1][k]),
+                                       np.asarray(grads[0][k]),
+                                       rtol=1e-5, atol=1e-9, err_msg=k)

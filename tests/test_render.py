@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from raytracing_gpu_tpu import RenderSettings, render, render_linear
-from raytracing_gpu_tpu.models import scenes
+from raytracing_gpu import RenderSettings, render, render_linear
+from raytracing_gpu.models import scenes
 
 SMALL = dict(image_width=64, spp_per_chunk=4, num_chunks=2, max_depth=6,
              ray_batch=4096)
@@ -47,7 +47,7 @@ class TestRender:
     def test_checkpoint_rejects_mismatched_render(self, basic, tmp_path):
         """A checkpoint from a different seed/settings/scene must NOT resume
         (shape alone is not identity — VERDICT r1 weak #7)."""
-        from raytracing_gpu_tpu.utils import checkpoint as ckpt
+        from raytracing_gpu.utils import checkpoint as ckpt
 
         st = RenderSettings(aspect_ratio=basic.aspect, **SMALL)
         ck = str(tmp_path / "ckpt")
@@ -79,7 +79,7 @@ class TestRender:
         import jax
         from jax.experimental import checkify
 
-        from raytracing_gpu_tpu.engine.render import chunk_sums
+        from raytracing_gpu.engine.render import chunk_sums
 
         st = RenderSettings(aspect_ratio=basic.aspect, image_width=32,
                             spp_per_chunk=2, num_chunks=1, max_depth=4,
@@ -133,8 +133,8 @@ class TestRussianRoulette:
     def test_diff_path_rejects_rr(self):
         import jax
 
-        from raytracing_gpu_tpu.engine.render import compile_param_renderer
-        from raytracing_gpu_tpu.engine import diff
+        from raytracing_gpu.engine.render import compile_param_renderer
+        from raytracing_gpu.engine import diff
 
         sd = scenes.get("cornell_box")
         st = RenderSettings(image_width=16, aspect_ratio=1.0, spp_per_chunk=1,

@@ -1,106 +1,134 @@
-"""Engine-routing matrix: which engine each compile path selects, per scene.
+"""Which BVH traversal each platform compiles in, and that the choice does
+not change the image.
 
-VERDICT r4 #7: the routing decisions in `engine.render.compile_renderer`,
-`engine.render.compile_param_renderer` and
-`parallel.render.compile_sharded_renderer` are load-bearing (a silent
-fallback turns a 4 Mrays/s mesh render into a 0.4 one) but were only
-asserted in prose.  Every compiled chunk now carries `engine_name`; this
-test enumerates all 13 scenes x (spp, rr) cells and pins the expected
-engine, so a routing regression is a test failure, not a perf mystery.
-
-Cells are evaluated with engine="pallas" (the TPU routing, runnable on CPU
-via interpret mode; engine="auto" on the CPU test backend always routes
-"xla" — asserted separately).
+`backend.traversal()` is the only place that looks at the device: the
+traversal kernel (ops/bvh_kernel.py) on an NVIDIA GPU, the XLA walk
+(accel/traverse.py) elsewhere.  Every compiled chunk names its traversal,
+so the routing matrix (scene x compile path x platform) is pinned here.
+The kernel, forced through the Pallas interpreter, must render each BVH
+scene as the XLA walk does (mesh scenes use their 100k-triangle stand-ins,
+at reduced resolution).
 """
 
+from functools import partial
+
 import jax
+import jax.numpy as jnp
+import numpy as np
 import pytest
 
-from raytracing_gpu_tpu import RenderSettings
-from raytracing_gpu_tpu.engine.render import (compile_param_renderer,
-                                              compile_renderer)
-from raytracing_gpu_tpu.models import scenes
+from raytracing_gpu import RenderSettings, backend
+from raytracing_gpu.backend import Traversal
+from raytracing_gpu.engine.render import (compile_param_renderer,
+                                          compile_renderer)
+from raytracing_gpu.models import scenes
+from raytracing_gpu.ops import bvh_kernel
 
-# scene -> (forward spp>=16, forward spp<16, forward spp>=16 + rr, diff)
-EXPECTED = {
-    "basic": ("megakernel", "megakernel", "megakernel", "record-walk"),
-    "first": ("megakernel", "megakernel", "megakernel", "record-walk"),
-    "big_scene1": ("megakernel", "megakernel", "megakernel", "record-walk"),
-    "two_spheres": ("megakernel", "megakernel", "megakernel", "record-walk"),
-    "two_perlin_spheres": ("megakernel", "megakernel", "megakernel",
-                           "record-walk"),
-    "earth": ("record-walk", "record-walk", "regen", "record-walk"),
-    "cornell_box": ("megakernel", "megakernel", "megakernel", "record-walk"),
-    "cornell_smoke": ("megakernel", "megakernel", "megakernel",
-                      "record-walk"),
-    "triangle": ("megakernel", "megakernel", "megakernel", "record-walk"),
-    "triangles": ("megakernel", "megakernel", "megakernel", "record-walk"),
-    "door": ("record-walk", "record-walk", "regen", "record-walk"),
-    "backpack": ("regen", "wavefront", "regen", "wavefront-record"),
-    "cup": ("regen", "wavefront", "regen", "wavefront-record"),
-}
+INTERPRET = Traversal("kernel", partial(bvh_kernel.closest_triangles,
+                                        interpret=True),
+                      partial(bvh_kernel.closest_spheres, interpret=True))
+
+BVH_SCENES = ["big_scene1", "backpack", "cup", "door"]
 
 
-def _settings(aspect, spp=16, rr=0):
-    return RenderSettings(image_width=64, aspect_ratio=aspect,
-                          spp_per_chunk=spp, num_chunks=1, max_depth=4,
-                          ray_batch=512, rr_start=rr)
+def _settings(aspect, width=32, spp=2, depth=3):
+    return RenderSettings(image_width=width, aspect_ratio=aspect,
+                          spp_per_chunk=spp, num_chunks=1, max_depth=depth,
+                          ray_batch=256)
 
 
-@pytest.mark.parametrize("name", sorted(EXPECTED))
-def test_forward_routing_matrix(name):
+@pytest.mark.parametrize("name", scenes.names())
+def test_forward_routing_matrix(monkeypatch, name):
+    """Every scene, every single-device compile path: the platform's
+    traversal and nothing else (compiling only; nothing is traced)."""
+    from raytracing_gpu.engine.fused_diff import compile_fused_param_renderer
+
     sd = scenes.get(name)
-    exp_f16, exp_f4, exp_f16rr, exp_diff = EXPECTED[name]
-    c = compile_renderer(sd.scene, sd.camera, _settings(sd.aspect),
-                         engine="pallas")
-    assert c.engine_name == exp_f16, f"{name} spp16: {c.engine_name}"
-    c = compile_renderer(sd.scene, sd.camera, _settings(sd.aspect, spp=4),
-                         engine="pallas")
-    assert c.engine_name == exp_f4, f"{name} spp4: {c.engine_name}"
-    c = compile_renderer(sd.scene, sd.camera, _settings(sd.aspect, rr=2),
-                         engine="pallas")
-    assert c.engine_name == exp_f16rr, f"{name} spp16+rr: {c.engine_name}"
-    c = compile_param_renderer(sd.scene, sd.camera,
-                               _settings(sd.aspect, spp=4), engine="pallas")
-    assert c.engine_name == exp_diff, f"{name} diff: {c.engine_name}"
+    st = _settings(sd.aspect)
+    for platform, expected in (("cpu", "xla"), ("gpu", "kernel")):
+        monkeypatch.setattr(backend, "platform", lambda: platform)
+        for compile_fn in (compile_renderer, compile_param_renderer,
+                           compile_fused_param_renderer):
+            c = compile_fn(sd.scene, sd.camera, st)
+            assert c.traversal == expected, (compile_fn.__name__, platform)
+
+
+@pytest.mark.parametrize("platform,expected", [("gpu", "kernel"),
+                                               ("cpu", "xla")])
+def test_backend_choice_per_platform(monkeypatch, platform, expected):
+    monkeypatch.setattr(backend, "platform", lambda: platform)
+    tv = backend.traversal()
+    assert tv.name == expected
+    want = (backend.kernel_traversal() if expected == "kernel"
+            else backend.xla_traversal())
+    assert tv == want
+
+
+def test_platform_follows_default_device():
+    cpu = jax.devices("cpu")[0]
+    with jax.default_device(cpu):
+        assert backend.platform() == "cpu"
+    assert backend.platform() == jax.default_backend()
 
 
 def test_auto_on_cpu_routes_xla():
     sd = scenes.get("cornell_box")
-    c = compile_renderer(sd.scene, sd.camera, _settings(sd.aspect),
-                         engine="auto")
-    assert jax.default_backend() != "tpu"
-    assert c.engine_name == "xla"
+    st = _settings(sd.aspect)
+    assert jax.default_backend() == "cpu"
+    assert compile_renderer(sd.scene, sd.camera, st).traversal == "xla"
+    assert compile_param_renderer(sd.scene, sd.camera, st).traversal == "xla"
+    forced = compile_renderer(sd.scene, sd.camera, st, traverse=INTERPRET)
+    assert forced.traversal == "kernel"
 
 
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
-def test_sharded_routing_wavefront():
-    """VERDICT r4 #3: the sharded router must select the sorted wavefront
-    for big-mesh scenes instead of silently falling back to the streamed
-    record walk."""
-    from raytracing_gpu_tpu.parallel.mesh import make_mesh
-    from raytracing_gpu_tpu.parallel.render import compile_sharded_renderer
+def test_sharded_routing_wavefront(monkeypatch, eight_devices):
+    """The sharded renderers take the platform's traversal as well."""
+    from raytracing_gpu.engine.fused_diff import compile_fused_param_renderer
+    from raytracing_gpu.parallel.mesh import make_mesh
+    from raytracing_gpu.parallel.render import compile_sharded_renderer
 
-    mesh = make_mesh(n_sp=1, n_dp=8)
+    mesh = make_mesh(n_sp=2, n_dp=4, devices=eight_devices)
     sd = scenes.get("backpack")
-    c = compile_sharded_renderer(sd.scene, sd.camera, _settings(sd.aspect),
-                                 mesh, engine="pallas")
-    assert c.engine_name == "regen"        # spp_local >= 16: per-device regen
-    c = compile_sharded_renderer(sd.scene, sd.camera,
-                                 _settings(sd.aspect, spp=4), mesh,
-                                 engine="pallas")
-    assert c.engine_name == "wavefront"    # low spp: bounce-synchronous
-    sd = scenes.get("cornell_box")
-    c = compile_sharded_renderer(sd.scene, sd.camera, _settings(sd.aspect),
-                                 mesh, engine="pallas")
-    assert c.engine_name == "megakernel"
-    # deep image-texture renders (reference-default depth 50): the record
-    # walk exceeds the device watchdog, so the sharded router must also
-    # pick the wavefront engines
-    sd = scenes.get("door")
-    st = RenderSettings(image_width=64, aspect_ratio=sd.aspect,
-                        spp_per_chunk=16, num_chunks=1, max_depth=50,
-                        ray_batch=512)
-    c = compile_sharded_renderer(sd.scene, sd.camera, st, mesh,
-                                 engine="pallas")
-    assert c.engine_name == "regen"
+    st = _settings(sd.aspect)
+    for platform, expected in (("cpu", "xla"), ("gpu", "kernel")):
+        monkeypatch.setattr(backend, "platform", lambda: platform)
+        c = compile_sharded_renderer(sd.scene, sd.camera, st, mesh)
+        assert c.traversal == expected
+        c = compile_fused_param_renderer(sd.scene, sd.camera, st, mesh=mesh)
+        assert c.traversal == expected
+
+
+@pytest.mark.parametrize("name", BVH_SCENES)
+def test_bvh_scene_renders_equal_with_kernel(name, assert_renders_match):
+    sd = scenes.get(name)
+    assert sd.scene.tri_bvh is not None or sd.scene.sphere_bvh is not None
+    st = _settings(sd.aspect)
+    key = jax.random.PRNGKey(3)
+    xla = compile_renderer(sd.scene, sd.camera, st,
+                           traverse=backend.xla_traversal())(key)
+    ker = compile_renderer(sd.scene, sd.camera, st, traverse=INTERPRET)(key)
+    n = st.num_pixels
+    assert_renders_match(xla[:n], ker[:n])
+
+
+@pytest.mark.parametrize("name", ["big_scene1", "backpack"])
+def test_bvh_scene_gradients_equal_with_kernel(name):
+    """The differentiable renderer walks through the kernel too; the walk is
+    detached, so the gradients agree (up to the rare path that diverges on
+    a last-bit hit distance)."""
+    from raytracing_gpu.engine import diff
+
+    sd = scenes.get(name)
+    st = _settings(sd.aspect, width=16, spp=1)
+    key = jax.random.PRNGKey(4)
+    params = diff.get_params(sd.scene)
+    n = st.num_pixels
+    grads = []
+    for tv in (backend.xla_traversal(), INTERPRET):
+        f = compile_param_renderer(sd.scene, sd.camera, st, traverse=tv)
+        grads.append(jax.grad(lambda p: jnp.mean(f(p, key)[:n]))(params))
+    for k in grads[0]:
+        a, b = np.asarray(grads[0][k]), np.asarray(grads[1][k])
+        np.testing.assert_allclose(b, a, rtol=0.05,
+                                   atol=0.02 * np.abs(a).max() + 1e-9,
+                                   err_msg=k)

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from raytracing_gpu_tpu import RenderSettings, render_linear
-from raytracing_gpu_tpu.models import scenes
+from raytracing_gpu import RenderSettings, render_linear
+from raytracing_gpu.models import scenes
 
 ALL = scenes.names()
 # mesh scenes are exercised separately (BVH path, test_bvh.py) — keep the

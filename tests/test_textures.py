@@ -4,8 +4,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from raytracing_gpu_tpu.scene import perlin, textures
-from raytracing_gpu_tpu.scene.builder import SceneBuilder
+from raytracing_gpu.scene import perlin, textures
+from raytracing_gpu.scene.builder import SceneBuilder
 
 
 def _eval(scene, tex_id, u=0.0, v=0.0, p=(0.0, 0.0, 0.0), n=1):

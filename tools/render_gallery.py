@@ -1,5 +1,7 @@
 """Render the full scene registry at quality settings -> renders/.
 
+renders/ is not kept in git; the gallery is made on demand.
+
 The reference repo's deliverable is its `images/` gallery
 (`/root/reference/images/`, README.md:3).  This script produces the
 framework's own gallery: every registered scene at 512-800 px and >=100 spp,
@@ -43,7 +45,7 @@ PLAN = {
 
 HEADER = """# Rendered gallery
 
-Every registered scene, rendered by this framework on one TPU chip
+Every registered scene, rendered by this renderer on {device}
 (`python tools/render_gallery.py`; russian roulette from bounce 4, full
 reference depth 50).  The right column is the reference's published render
 of the same scene (`/root/reference/images/`), identified by the
@@ -66,11 +68,15 @@ def main() -> None:
         "renders"))
     args = ap.parse_args()
 
-    from raytracing_gpu_tpu.core.config import RenderSettings
-    from raytracing_gpu_tpu.engine import film
-    from raytracing_gpu_tpu.engine.render import render
-    from raytracing_gpu_tpu.models import scenes
+    import jax
 
+    from raytracing_gpu.backend import setup_compile_cache
+    from raytracing_gpu.core.config import RenderSettings
+    from raytracing_gpu.engine import film
+    from raytracing_gpu.engine.render import render
+    from raytracing_gpu.models import scenes
+
+    setup_compile_cache()
     os.makedirs(args.out, exist_ok=True)
     names = args.scenes or list(PLAN)
     rows = []
@@ -98,7 +104,7 @@ def main() -> None:
 
     if not args.scenes and args.spp is None:
         with open(os.path.join(args.out, "README.md"), "w") as f:
-            f.write(HEADER)
+            f.write(HEADER.format(device=jax.devices()[0].device_kind))
             f.writelines(rows)
 
 
